@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Prepare the example-02/TIMIT recipe workdir from REAL AUDIO (VERDICT
-r3 #7: the one pipeline stage that previously required HTK's HCopy).
+"""Prepare the example-02/TIMIT recipe workdir from REAL AUDIO (the one
+pipeline stage that previously required HTK's HCopy).
 
 Mirrors examples/02train_MLP3_newbob_timit/prepare_timit/ end to end,
 natively:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Synthesize a TIMIT-SCALE corpus for the example-02 recipe (VERDICT r2 #3).
+"""Synthesize a TIMIT-SCALE corpus for the example-02 recipe.
 
 The reference's second golden test trains on TIMIT: 4620 train utterances,
 ~1.1M frames of 23-band FBANK at 10ms, 39 folded phones with 1-state HMMs

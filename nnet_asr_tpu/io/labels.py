@@ -1,6 +1,6 @@
 """Label repository: MLF transcriptions → per-frame training targets.
 
-Re-implements LabelRepository (KaldiLib/Labels.{h,cc}) with a TPU-friendly
+Re-implements LabelRepository (KaldiLib/Labels.{h,cc}) with a device-friendly
 twist: targets are produced as *integer* state indices per frame (fused with
 cross-entropy on device, avoiding dense one-hot materialization at senone
 scale), with an optional dense one-hot export for parity tests against the

@@ -4,7 +4,7 @@ Compiles the shared library on first use (g++ is part of the toolchain)
 into a per-user cache; every entry point has a pure-Python fallback so the
 framework works without a compiler. ctypes calls release the GIL, so a
 ``ThreadPoolExecutor`` over ``read_frames`` gives genuinely parallel file
-reading — the TPU-native replacement for Platform's reader thread
+reading — the replacement for Platform's reader thread
 (Platform.h:201-245).
 """
 

@@ -1,6 +1,6 @@
 """Network components as static specs + pure functions over param pytrees.
 
-TPU-native re-design of the reference component zoo. Where TNet models a
+JAX re-design of the reference component zoo. Where TNet models a
 network as a linked list of stateful C++ objects with per-layer buffers
 (TNetLib/Component.h:24-171, CuTNetLib/cuComponent.h:27-175), here each
 component is a *frozen spec* (static, hashable — safe to close over in
@@ -407,7 +407,7 @@ class Expand(Component):
 
     def apply(self, params, x):
         # static shifted slices with edge replication — compiles to pure
-        # slice/concat (no gather), which XLA fuses well on TPU
+        # slice/concat (no gather), which XLA fuses well
         T = x.shape[0]
         cols = []
         for off in self.offsets:
@@ -660,7 +660,7 @@ class Recurrent(Component):
 
     Reference: CuTNetLib/cuRecurrent.{h,cc} — frame-serial with an input
     history ring. Here the whole utterance runs as one ``lax.scan`` (the
-    idiomatic TPU design; see SURVEY.md §7 step 7 on the trainer deviation).
+    idiomatic JAX design; see SURVEY.md §7 step 7 on the trainer deviation).
     W: (in+out, out).
     """
 

@@ -1,6 +1,6 @@
 // Native HTK feature-file I/O for the input pipeline hot path.
 //
-// TPU-native counterpart of the reference's KaldiLib feature reading
+// Counterpart of the reference's KaldiLib feature reading
 // (Features.cc:1011-1279): where the reference fseek()s per frame, this
 // reads the file once, byte-swaps/decompresses with tight loops, applies
 // the frame-range + edge-extension logic, and returns float32 frames ready

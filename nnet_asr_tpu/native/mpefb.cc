@@ -1,4 +1,4 @@
-// Native MPE lattice forward-backward engine (VERDICT r4 #2).
+// Native MPE lattice forward-backward engine.
 //
 // Replicates nnet_asr_tpu/train/mpe.py MpeComputer.compute() — the
 // reference's Decoder::GetMpeGamma recursions (Decoder.tcc:2443-2578

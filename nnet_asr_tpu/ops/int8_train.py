@@ -1,9 +1,7 @@
 """Fully-quantized int8 training matmul (fake-quant, all three GEMMs).
 
-The int8 MXU delivers 2× bf16 peak, and the all-GEMM int8 train step
-measured 1.20× the f32 production drain (scripts/mfu_drain_ab.py
---config int8all, docs/KERNELS.md). This module supplies the *numerics*
-of that step as a fake-quant ``qmatmul`` so convergence can be validated
+This module supplies the *numerics* of an all-GEMM int8 train step as
+a fake-quant ``qmatmul`` so convergence can be validated
 end-to-end on real recipes (tnet/scheduler ``--COMPUTEDTYPE=int8full``):
 every GEMM — forward, input-gradient and weight-gradient — sees int8
 quantize-dequantize on both operands, computed in f32.
@@ -17,9 +15,9 @@ its contraction (a scale may vary along any NON-contracted axis):
 
 Per-frame activation scales are what rescues convergence: the per-tensor
 variant anneals into its noise floor under newbob LR halving (CV 27.78
-vs 30.17 f32 on example-01) while per-frame matches f32 (CV 30.31) —
-docs/KERNELS.md. The reference has no quantized training; this is a
-beyond-parity TPU capability (the analog surface is the reference's
+vs 30.17 f32 on example-01) while per-frame matches f32 (CV 30.31). The
+reference has no quantized training; this is a beyond-parity capability
+(the analog surface is the reference's
 CuMatrix f32-only pipeline, cuBiasedLinearity.cc:9-42).
 """
 

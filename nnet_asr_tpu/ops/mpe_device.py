@@ -112,7 +112,7 @@ def arc_forward_batch_jax(log_obs: np.ndarray, lt: np.ndarray):
 # ---------------------------------------------------------------------------
 # Bucket-padded masked variants: every distinct (A, L, S) is a distinct XLA
 # program, and real lattices produce hundreds of exact shapes — pathological
-# compile behavior (0.4-30s per program on remote-compile backends). Padding
+# compile behavior. Padding
 # A and L to power-of-two buckets with a per-arc length mask bounds the
 # program count to |A buckets| x |L buckets| x |S|, ~16 total. The scan
 # holds the carry (forward) / the exit vector (backward) on steps past an

@@ -1,4 +1,4 @@
-"""Objective functions: cross-entropy and mean-square error, TPU-fused.
+"""Objective functions: cross-entropy and mean-square error, fused on device.
 
 Re-designs TNetLib/ObjFun.cc + CuTNetLib/cuObjectiveFunction.cc:
   - integer frame labels replace dense one-hot targets (avoids the
@@ -70,9 +70,8 @@ def xent_loss_and_stats(logits: jnp.ndarray, labels: jnp.ndarray,
     else:
         logp = jax.nn.log_softmax(logits, axis=-1)
     # one-hot contraction instead of logp[rows, labels]: a 2-D gather's
-    # VJP is a scatter, which serializes on TPU (measured 2.2x whole-step
-    # cost on the MLP3 workload); the dense mask rides the VPU and its
-    # gradient is the same err = softmax - onehot
+    # VJP would be a scatter; the dense mask fuses into the softmax and
+    # its gradient is the same err = softmax - onehot
     onehot = jax.nn.one_hot(labels, logits.shape[1], dtype=logp.dtype)
     picked = jnp.sum(logp * onehot, axis=-1)
     loss = -jnp.sum(picked)

@@ -1,17 +1,17 @@
 """Sharded training step: data parallelism × senone-sharded output layer.
 
-TPU-native replacement for the reference's two parallelism mechanisms
+Device-mesh replacement for the reference's two parallelism mechanisms
 (SURVEY.md §2.9):
 
   * Platform's N trainer threads with shared weights + row-striped fp64
     gradient reduction (Platform.h:143-391, BiasedLinearity.cc:88-178)
     → the ``data`` mesh axis: per-device batch shards, gradient ``psum``
-    over ICI, identical replicated update on every device.
+    across devices, identical replicated update on every device.
   * The embryonic column-block output structure (BlockSoftmax /
     CuDiscreteLinearity) → the ``model`` mesh axis: the senone output
     layer's weight columns live sharded, the softmax normalizer is a
     ``psum``/``pmax`` over the model axis, and each shard updates only its
-    own column stripe — the exact TPU analog of the reference's
+    own column stripe — the exact mesh analog of the reference's
     "each thread updates a disjoint row stripe".
 
 Head coverage matches the single-chip trainer:
@@ -20,8 +20,8 @@ Head coverage matches the single-chip trainer:
   * ``...→BiasedLinearity→BlockSoftmax`` + CE (Activation.cc:55-133) and
     the MSE objective (ObjFun.cc:24-56, with the reference's
     identity-backward through a terminal softmax): local logit stripes are
-    ``all_gather``-ed over the model axis (the VJP is a reduce-scatter —
-    both ride ICI) and the exact single-chip loss functions run on the
+    ``all_gather``-ed over the model axis (the VJP is a reduce-scatter)
+    and the exact single-chip loss functions run on the
     full logits.
 
 Senone dims that don't divide the model axis are zero-padded to the next
@@ -31,7 +31,7 @@ zero, so they stay zero and slicing them off reproduces the unpadded
 model exactly (tests/test_parallel.py::test_sharded_padded_senones).
 
 Built on ``shard_map`` so the collective placement is explicit; XLA lowers
-psum/pmax/all_gather to ICI collectives.
+psum/pmax/all_gather to the backend's collectives (NCCL on NVIDIA cards).
 """
 
 from __future__ import annotations
@@ -117,7 +117,7 @@ def make_sharded_train_step(net: Network, sgd_cfg: SgdConfig, mesh: Mesh,
     ``fns`` additionally holds 'drain_train'/'drain_eval' whole-cache scans;
     ``drain_train`` takes an optional runtime ``lr`` scalar (newbob halving
     without recompiles, as in train.Trainer) and partially unrolls the
-    bunch scan by ``scan_unroll`` (docs/KERNELS.md).
+    bunch scan by ``scan_unroll``.
 
     ``compute_dtype`` mirrors TrainerConfig.compute_dtype on the mesh:
     'bf16' runs the BiasedLinearity matmuls in bfloat16 (f32 master
@@ -133,7 +133,7 @@ def make_sharded_train_step(net: Network, sgd_cfg: SgdConfig, mesh: Mesh,
     replicated accumulator as ``acc['_sr_key']`` exactly like
     train.Trainer (advanced per step inside the drain scan, eval
     deterministic). 'int8full' (real int8 GEMMs) is single-chip-only —
-    rejected here rather than silently ignored (ADVICE r3).
+    rejected here rather than silently ignored.
     """
     if objective not in ("xent", "mse"):
         raise ValueError(f"unknown objective {objective!r}")
@@ -252,7 +252,7 @@ def make_sharded_train_step(net: Network, sgd_cfg: SgdConfig, mesh: Mesh,
 
         m = jax.lax.pmax(jnp.max(jax.lax.stop_gradient(logits), axis=1), "model")
         s = jax.lax.psum(jnp.sum(jnp.exp(logits - m[:, None]), axis=1), "model")
-        # one-hot contraction (a gather's VJP is a TPU-hostile scatter);
+        # one-hot contraction (a gather's VJP would be a scatter);
         # labels outside this shard's span give all-zero one-hot rows, so
         # non-owning shards contribute 0 to the psum automatically
         oh_loc = jax.nn.one_hot(labels - off, out_loc, dtype=logits.dtype)

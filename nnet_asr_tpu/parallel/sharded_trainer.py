@@ -1,15 +1,15 @@
 """Multi-device trainer: the Trainer epoch loop over the sharded step.
 
-Drop-in for train.Trainer when more than one device is visible (a pod
-slice, or the virtual CPU mesh in tests): batches shard over the ``data``
-axis, gradients psum over ICI, the senone output layer lives column-
-sharded over ``model`` (auto-padded when the senone count doesn't divide
-the axis). CE with plain or Block softmax heads and the MSE objective are
+Drop-in for train.Trainer when more than one device is visible (the
+cards of a host, or the virtual CPU mesh in tests): batches shard over
+the ``data`` axis, gradients psum across devices, the senone output layer
+lives column-sharded over ``model`` (auto-padded when the senone count
+doesn't divide the axis). CE with plain or Block softmax heads and the MSE objective are
 supported, matching the single-chip trainer.
 
 Multi-host runs (``jax.distributed.initialize()`` done by the caller) use
 PER-HOST input sharding — each process reads only its own SCP shard and
-feeds only its local slice of every global bunch (the TPU analog of
+feeds only its local slice of every global bunch (the device analog of
 SURVEY.md §2.9's "per-host data loading"; the round-1 design where every
 host read the full global batch is gone). Hosts stay in lockstep through
 a drain-negotiation protocol: each fill round, every host offers the
@@ -61,10 +61,6 @@ class ShardedTrainer:
         self.cfg = cfg
         self.mesh = mesh
         self.pipeline = TransformPipeline(transform, start_frm_ext, end_frm_ext)
-        if cfg.pallas_enabled():
-            raise ValueError(
-                "use_pallas has no mesh implementation; run single-chip "
-                "(the sharded step's XLA path is the production one)")
         self.state, self._step, self._eval, self._fns = \
             make_sharded_train_step(net, cfg.sgd, mesh,
                                     objective=cfg.objective,
@@ -136,7 +132,7 @@ class ShardedTrainer:
         per-device stripes (device-side slices + D2D device_put) and
         assemble with make_array_from_single_device_arrays. Replaces the
         round-2 np.asarray → make_array_from_process_local_data hop that
-        dragged every cache fill through host memory (VERDICT r2 #5)."""
+        dragged every cache fill through host memory."""
         idx_map = sharding.addressable_devices_indices_map(global_shape)
         spans = {}
         for dev, idx in idx_map.items():

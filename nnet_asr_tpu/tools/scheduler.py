@@ -73,7 +73,7 @@ def main(argv=None) -> int:
     ap.add_argument("--hbm-budget-mb", type=float,
                     default=float(_env("HBM_BUDGET_MB", "0")) or None)
     # matmul compute dtype (tnet --COMPUTEDTYPE): f32 (parity default) |
-    # bf16 | int8 (fake-quant STE convergence mode, docs/KERNELS.md)
+    # bf16 | int8 (fake-quant STE convergence mode)
     ap.add_argument("--compute-dtype", default=_env("COMPUTE_DTYPE"),
                     choices=[None, "f32", "bf16", "int8", "int8pf",
                              "int8pfsr", "int8full"])

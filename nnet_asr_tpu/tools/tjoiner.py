@@ -2,7 +2,7 @@
 (TJoiner.cc equivalent).
 
 Joins features in SCP order into large files (an HDD seek optimization in
-2012; still useful for network filesystems feeding TPU pods) and emits a
+2012; still useful for network filesystems feeding accelerators) and emits a
 new SCP whose entries address the archives with ``[s,e]`` frame ranges.
 
 Reference semantics (TJoiner.cc:232-330): each segment is read through

@@ -3,7 +3,7 @@
 Accepts the reference tools' option vocabulary (same short options, long
 ``--PARAM=VAL`` names, and ``-C`` config files, SNAME "TNET") so the
 reference shell drivers (run_test.*.sh, tools/train/training_scheduler.sh)
-can drive it unmodified. One TPU chip replaces both the multithreaded CPU
+can drive it unmodified. One device replaces both the multithreaded CPU
 Platform and the CUDA path; ``--THREADS`` is accepted and ignored.
 
 Defaults follow TNetCu.cc:192-246 (momentum/L1/lr-factors/GRADDIVFRM
@@ -102,16 +102,16 @@ def main(argv=None) -> int:
     p_resume = ui.get_str("RESUMESTATE")
     p_save = ui.get_str("SAVESTATE")
     p_jaxprofile = ui.get_str("JAXPROFILE")
-    # drain-scan partial unroll (perf knob, docs/KERNELS.md): lets XLA
-    # overlap bunch k+1's input slice with bunch k's compute
+    # drain-scan partial unroll (perf knob): lets XLA overlap bunch
+    # k+1's input slice with bunch k's compute
     scan_unroll = ui.get_int("SCANUNROLL", 8)
-    # velocity STORAGE dtype (perf knob, docs/KERNELS.md): 'bf16' halves
-    # the momentum-mode velocity HBM stream; 'f32' (default) keeps the
+    # velocity STORAGE dtype (perf knob): 'bf16' halves the
+    # momentum-mode velocity HBM stream; 'f32' (default) keeps the
     # reference's exact GPU semantics (cuBiasedLinearity.cc:44-63)
     velocity_dtype = ui.get_enum("VELOCITYDTYPE", "f32", ["f32", "bf16"])
     # matmul compute dtype: f32 (parity default), bf16 (explicit bf16
     # master-cast mode), int8 (fake-quant STE convergence-experiment
-    # mode — the int8 MXU arithmetic in f32, docs/KERNELS.md)
+    # mode — int8 GEMM arithmetic computed in f32)
     compute_dtype = ui.get_enum(
         "COMPUTEDTYPE", "f32",
         ["f32", "bf16", "int8", "int8pf", "int8pfsr", "int8full"])

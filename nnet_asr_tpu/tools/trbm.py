@@ -49,8 +49,8 @@ def main(argv=None) -> int:
     cachesize = ui.get_int("CACHESIZE", 12800)
     randomize = ui.get_bool("RANDOMIZE", True)
     seed = ui.get_int("SEED", 0)
-    # sampling PRNG: rbg = TPU-fast counter generator (1.5x CD-1 step,
-    # docs/KERNELS.md), threefry = default reproducible stream
+    # sampling PRNG: rbg = counter generator, threefry = default
+    # reproducible stream (train/rbm.py RbmTrainConfig.rng_impl)
     rng_impl = ui.get_enum("RNGIMPL", "threefry", ["threefry", "rbg"])
     trace = ui.get_int("TRACE", 0)
     if ui.get_bool("PRINTCONFIG", False):

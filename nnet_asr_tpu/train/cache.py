@@ -183,8 +183,7 @@ class DeviceFrameCache:
     sequence is identical to FrameCache's.
 
     Why it exists: FrameCache concatenates variable-length device slices,
-    and every distinct composition is a fresh XLA program — pathological
-    on remote-compile backends (TNetCu's CuCache has the same fixed-buffer
+    and every distinct composition is a fresh XLA program (TNetCu's CuCache has the same fixed-buffer
     design for the same reason: cuCache.cc preallocates cachesize_ rows).
     """
 

@@ -271,7 +271,7 @@ class MpeComputer:
             # bucket-padded masked kernels: ONE device call per utterance
             # and a bounded program count (exact shapes would compile one
             # XLA program per distinct (n_arcs, length) — hundreds per
-            # corpus, ruinous on remote-compile backends)
+            # corpus)
             from ..ops.mpe_device import arc_fb_padded_jax, arc_fwd_padded_jax
             self._arc_fb_padded = arc_fb_padded_jax
             self._arc_fwd_padded = arc_fwd_padded_jax

@@ -1,4 +1,4 @@
-"""RBM CD-1 pretraining (TRbmCu path), TPU-native.
+"""RBM CD-1 pretraining (TRbmCu path) on the device.
 
 Functional re-design of CuRbm/CuRbmSparse + the TRbmCu main loop
 (cuRbm.cc:101-174, cuRbmSparse.cc:131-195, TRbmCu.cc:291-357): one jitted
@@ -30,10 +30,10 @@ class RbmTrainConfig:
     sparsity_lambda: float = 0.95
     sparsity_cost: float = 1e-7
     # PRNG for the negative-phase sampling: 'threefry' (jax default,
-    # reproducible with all recorded trajectories) or 'rbg' (the TPU
-    # hardware-friendly counter generator — measured 1.5x CD-1 step
-    # throughput at production bunches, docs/KERNELS.md; a DIFFERENT but
-    # statistically equivalent stream, like the reference's CuRand vs
+    # reproducible with all recorded trajectories) or 'rbg' (a counter
+    # generator; which one is faster on the H100 is to be measured,
+    # ROADMAP.md queue 1 #7; a DIFFERENT but statistically equivalent
+    # stream, like the reference's CuRand vs
     # our threefry already are)
     rng_impl: str = "threefry"
 

@@ -3,8 +3,8 @@
 The reference trains frame-serially: per frame forward, CE, then a
 truncated BPTT-of-order-K walk over the input history with an immediate
 weight update (TRecurrentCu.cc:355-371, cuRecurrent.cc:86-153). A
-frame-serial Python loop would be the worst possible TPU program, so the
-TPU-native design scans *segments* of K frames: one ``lax.scan`` per
+frame-serial Python loop would be the worst possible device program, so
+this design scans *segments* of K frames: one ``lax.scan`` per
 utterance carries (params, velocity, hidden state) across segments, the
 gradient is truncated at segment boundaries (``stop_gradient`` on the
 carried state), and the update applies per segment instead of per frame.
@@ -45,7 +45,7 @@ class RecurrentTrainer:
     def __init__(self, net: Network, cfg: RecurrentTrainerConfig, mesh=None):
         """``mesh``: optional jax.sharding.Mesh — utterances shard over the
         ``data`` axis (batched truncated BPTT with the segment gradient
-        psum'd over ICI; the reference trains single-device,
+        psum'd across devices; the reference trains single-device,
         TRecurrentCu.cc:290-371, so this is the beyond-parity scaling
         axis). Semantics match the single-device batch step: the update
         consumes the batch-summed gradient either way."""
@@ -120,8 +120,8 @@ class RecurrentTrainer:
             # x_seg (B, K, D), labels/mask (B, K)
             logits, h_new = self._forward_seg(params, x_seg, h_list)
             lp = jax.nn.log_softmax(logits, axis=-1)
-            # one-hot contraction: take_along_axis's VJP is a scatter,
-            # which serializes on TPU
+            # one-hot contraction: take_along_axis's VJP would be a
+            # scatter
             picked = jnp.sum(
                 lp * jax.nn.one_hot(labels_seg, n_out, dtype=lp.dtype),
                 axis=-1)
@@ -362,7 +362,7 @@ class RecurrentTrainer:
         self.train_batch([feats], [labels])
 
     def train_batch(self, feats_list, labels_list) -> None:
-        """Train a batch of utterances together (TPU-native mode).
+        """Train a batch of utterances together (the batched mode).
 
         Utterances are padded to a common segment grid and scanned as one
         program; each segment step updates once with the summed gradient
@@ -383,7 +383,7 @@ class RecurrentTrainer:
         B = len(feats_list)
         T_max = max(f.shape[0] for f in feats_list)
         # n_seg bucketed to multiples of 16: every distinct scan length is
-        # a distinct XLA program (expensive on remote-compile backends);
+        # a distinct XLA program;
         # the all-masked padding segments are exact no-ops (see utt_step)
         n_seg = -(-(-(-T_max // K)) // 16) * 16
         F = np.zeros((B, n_seg * K, D), np.float32)

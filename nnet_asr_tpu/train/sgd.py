@@ -37,7 +37,7 @@ class SgdConfig:
     # Velocity STORAGE dtype: None = f32 (the reference's exact GPU
     # semantics, cuBiasedLinearity.cc:44-63) | 'bf16' (opt-in perf mode:
     # halves the velocity read+write HBM traffic that dominates the
-    # momentum-mode step — docs/KERNELS.md; the momentum math still runs
+    # momentum-mode step; the momentum math still runs
     # in f32 on the upcast velocity, only the carried state is rounded).
     velocity_dtype: Optional[str] = None
 

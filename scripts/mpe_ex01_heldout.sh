@@ -1,6 +1,6 @@
 #!/bin/bash
 # Held-out MPE decode-win experiment on example-01 — REAL speech
-# (VERDICT r4 #1; results in BASELINE_MEASURED.md "MPE decode win").
+# (results in BASELINE_MEASURED.md "MPE decode win").
 #
 # 80/20 split of the example-01 corpus: CE newbob on the 80 train
 # utterances (seed-317 init), denominator lattices from that CE model

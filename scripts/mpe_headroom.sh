@@ -1,5 +1,5 @@
 #!/bin/bash
-# MPE decode-win experiment (VERDICT r4 #1): give the sequence criterion
+# MPE decode-win experiment: give the sequence criterion
 # HEADROOM and show it converts to a decode improvement.
 #
 # Round-4 finding: at TIMIT scale the CE 368:500:39 model sits at its

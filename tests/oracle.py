@@ -61,11 +61,12 @@ def softmax(x):
     return e / e.sum(axis=1, keepdims=True)
 
 
-def forward_network(net, x):
-    """Forward a parsed nnet_asr_tpu Network with NumPy using the oracle ops."""
+def forward_network(net, x, dtype=np.float32):
+    """Forward a parsed nnet_asr_tpu Network with NumPy using the oracle ops,
+    in ``dtype`` (float64 makes it the reference for float32 devices)."""
     from nnet_asr_tpu.models import components as C
 
-    x = np.asarray(x, dtype=np.float32)
+    x = np.asarray(x, dtype=dtype)
     for spec, p in zip(net.specs, net.params):
         if isinstance(spec, C.Expand):
             x = expand(x, spec.offsets)

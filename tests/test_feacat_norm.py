@@ -170,7 +170,7 @@ def test_newbob_schedule(tmp_path):
 
 def test_tfeacat_int8_close_to_f32(mlp_and_data):
     """--INT8 posterior dumps stay close to f32 (per-channel weight quant
-    + dynamic activation quant, int8 MXU path)."""
+    + dynamic activation quant, int8 GEMMs)."""
     net, mmf, scp, tmp = mlp_and_data
     from nnet_asr_tpu.tools import tfeacat
     d32, d8 = tmp / "q32", tmp / "q8"

@@ -4,7 +4,7 @@ Every long option the reference tools accept (extracted from their
 SNAME":PARAM" tables in /root/reference/src/*.cc) must be accepted by the
 corresponding CLI here — passing any of them at its reference default
 must never die with the unused-parameter check. (Flags whose semantics
-have no analog in the TPU-native design are accepted with a warning —
+have no analog in this design are accepted with a warning —
 see tools/tmpe.py — but never rejected; reference shell scripts pass
 them freely.)"""
 

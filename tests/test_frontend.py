@@ -1,4 +1,4 @@
-"""Native HCopy-equivalent front end (VERDICT r3 #7): HTK-book formula
+"""Native HCopy-equivalent front end: HTK-book formula
 oracle checks, byte-exact HTK output headers, round-trip through the
 io/htk.py readers, and the THCopy CLI end-to-end from WAV/raw audio."""
 
@@ -236,7 +236,7 @@ def test_hcopy_oracle_fixture(fea, cfg_fn):
     """External-oracle check against recorded HTK HCopy output
     (tests/data/hcopy_oracle/README.md documents the exact generation
     recipe; HTK is absent from this container, so the test SKIPS until
-    the fixture files are committed — VERDICT r4 weak #7)."""
+    the fixture files are committed)."""
     import os
     d = os.path.join(os.path.dirname(__file__), "data", "hcopy_oracle")
     path = os.path.join(d, fea)
@@ -254,7 +254,7 @@ def test_hcopy_oracle_fixture(fea, cfg_fn):
 
 def test_frontend_rejects_unimplemented_qualifiers():
     """_N/_C/_K/_V must error loudly: the written header would advertise
-    a layout the payload doesn't have (ADVICE r4)."""
+    a layout the payload doesn't have."""
     from nnet_asr_tpu.ops.mfcc import FrontendConfig
     for bad in ("FBANK_N", "MFCC_0_N", "MFCC_C", "FBANK_K", "MFCC_V"):
         with pytest.raises(ValueError, match="qualifier"):
@@ -263,8 +263,8 @@ def test_frontend_rejects_unimplemented_qualifiers():
 
 def test_sphere_roundtrip_both_byte_orders(tmp_path):
     """NIST SPHERE read/write: the 1024-byte ASCII header + PCM body,
-    little ('01') and big ('10') sample_byte_format (VERDICT r4 #3 —
-    real TIMIT discs ship SPHERE files named .wav)."""
+    little ('01') and big ('10') sample_byte_format (real
+    TIMIT discs ship SPHERE files named .wav)."""
     from nnet_asr_tpu.io.wav import read_sphere, sniff_audio, write_sphere
     s = _tone(700)
     for fmt in ("01", "10"):
@@ -369,7 +369,7 @@ def test_thcopy_nohead_byte_order_semantics(tmp_path):
     (TFeaCat.cc:139 swap = !GetBool(NATURALREADORDER, IsBigEndian()));
     BYTEORDER=VAX also means little; neither set defaults to HTK's
     big-endian.  NATURALREADORDER=TRUE must therefore match BYTEORDER=VAX
-    bit-for-bit and differ from the no-config default (ADVICE r4)."""
+    bit-for-bit and differ from the no-config default."""
     from nnet_asr_tpu.tools import thcopy
     s = _tone(1000)
     raw = tmp_path / "u.raw"

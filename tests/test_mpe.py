@@ -470,7 +470,7 @@ def test_single_state_closed_form_matches_generic_fb():
 
 # ---------------------------------------------------------------------------
 # native (C++) engine parity — gates native/mpefb.cc against the numpy
-# engine across every decoder knob (VERDICT r4 #2)
+# engine across every decoder knob
 # ---------------------------------------------------------------------------
 
 def _native_or_skip():

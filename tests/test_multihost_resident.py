@@ -69,7 +69,7 @@ def test_two_process_resident_matches_streaming(corpus, tmp_path):
     env["PYTHONPATH"] = f"{REPO}:{HERE}"
     env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    env["NNET_ASR_TPU_NO_COMPILE_CACHE"] = "1"
+    env["NNET_ASR_NO_COMPILE_CACHE"] = "1"
     procs = [
         subprocess.Popen(
             [sys.executable,

@@ -114,8 +114,8 @@ def _run_reference_obj(net, bunches, sgd_cfg, objective):
 @pytest.mark.parametrize("data,model", [(4, 2), (2, 4), (1, 8)])
 def test_sharded_padded_senones(data, model):
     """n_out=21 doesn't divide the model axis: auto-padding with masked CE
-    must reproduce the single-chip trajectory exactly (the VERDICT round-1
-    fix: tnet --MESH on the real 135-senone example-01 model)."""
+    must reproduce the single-chip trajectory exactly (the round-1 fix:
+    tnet --MESH on the real 135-senone example-01 model)."""
     rng = np.random.default_rng(3)
     net = _mlp_head(rng, "softmax")          # dout=21, not divisible by 2/4
     sgd_cfg = SgdConfig(learning_rate=0.05, momentum=0.5, weightcost=1e-4,
@@ -198,10 +198,10 @@ def test_sharded_gathered_heads(head, objective):
     ("int8pfsr", 3e-4),  # SR draws at the GLOBAL bunch shape, row-sliced
 ])
 def test_sharded_compute_dtype_matches_single_chip(cdt, rtol):
-    """--COMPUTEDTYPE under --MESH must actually quantize (ADVICE r3: it
-    was silently ignored) and track the single-chip trajectory.
+    """--COMPUTEDTYPE under --MESH must actually quantize (it was
+    once silently ignored) and track the single-chip trajectory.
     int8pfsr additionally requires the mesh's stochastic-rounding draws
-    to be bit-identical to the single chip's (VERDICT r4 #5)."""
+    to be bit-identical to the single chip's."""
     rng = np.random.default_rng(7)
     net = _mlp(rng)
     sgd_cfg = SgdConfig(learning_rate=0.05, momentum=0.5, grad_div_frm=True)

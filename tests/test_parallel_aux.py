@@ -1,7 +1,7 @@
 """Mesh (data-parallel) parity for the auxiliary trainers: RBM CD-1,
-recurrent segment-scan, and the MPE error-backprop step — VERDICT r3 #3
-(every trainer a mesh user can reach needs multi-chip correctness
-evidence, not just the frame-CE family)."""
+recurrent segment-scan, and the MPE error-backprop step (every trainer
+a mesh user can reach needs multi-chip correctness evidence, not just
+the frame-CE family)."""
 
 import numpy as np
 import pytest

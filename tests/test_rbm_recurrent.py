@@ -107,7 +107,7 @@ def test_gaussian_visible_rbm():
 
 
 def test_rbm_trainer_rbg_rng():
-    """rng_impl='rbg' (the measured TPU throughput mode, trbm
+    """rng_impl='rbg' (the counter-generator mode, trbm
     --RNGIMPL=rbg) drives the same CD-1 trainer to a finite, moving
     trajectory; unknown impls are rejected."""
     from nnet_asr_tpu.train.rbm import RbmTrainer

@@ -1,4 +1,4 @@
-"""Adversarial reader coverage (VERDICT r3 #8): corrupt/truncated HTK
+"""Adversarial reader coverage: corrupt/truncated HTK
 headers and data, a _K CRC-bearing feature file, wrong-endian input, and
 malformed MLF/SLF/MMF — the readers must fail FAST with an error naming
 the problem (the reference's Features.cc/Labels.cc fail-fast surface,

@@ -92,7 +92,7 @@ def test_resident_matches_streaming(corpus, tmp_path):
 def test_resident_mesh_matches_streaming_mesh(corpus, tmp_path):
     """--resident --mesh=4x2: HBM-sharded stacks + sharded drains must
     reproduce the streaming mesh run (tnet --MESH=4x2) exactly — the two
-    fastest modes compose (VERDICT r2 #2)."""
+    fastest modes compose."""
     out_s = _run(corpus, None, tmp_path / "w_sm", ["--mesh=4x2"])
     out_r = _run(corpus, "--resident", tmp_path / "w_rm", ["--mesh=4x2"])
     assert "(resident, mesh)" in out_r

@@ -134,10 +134,10 @@ def test_l2_bias_untouched_in_reference_binary(tmp_path, example01):
 
 
 def test_bf16_velocity_mode_tracks_f32_and_stores_bf16():
-    """SgdConfig(velocity_dtype='bf16') is an opt-in perf mode
-    (docs/KERNELS.md): velocity is STORED bf16 but the momentum math runs
-    in f32 on the upcast state, so a few steps stay close to the exact
-    f32-velocity trajectory; params remain f32. Default (None) is the
+    """SgdConfig(velocity_dtype='bf16') is an opt-in perf mode:
+    velocity is STORED bf16 but the momentum math runs in f32 on the
+    upcast state, so a few steps stay close to the exact f32-velocity
+    trajectory; params remain f32. Default (None) is the
     reference's f32 semantics (cuBiasedLinearity.cc:44-63)."""
     import jax.numpy as jnp
 

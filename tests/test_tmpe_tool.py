@@ -366,7 +366,7 @@ def test_tmpe_exact_segmentation_flag(mpe_setup, tmp_path):
 
 
 def test_tmpe_delayed_update(mpe_setup, tmp_path, capsys):
-    """--DELAYEDUPDATE (one-utterance-stale gradients, VERDICT r4 #9):
+    """--DELAYEDUPDATE (one-utterance-stale gradients):
     trains to a finite model whose first-iteration criterion matches the
     sequential path exactly (the criterion is measured on the pre-update
     forward of each utterance, which at staleness one differs only from
